@@ -1,6 +1,6 @@
 // Native host runtime for sregex-tpu.
 //
-// The TPU owns the bulk scan (ops/scan.py); this C++ module is the
+// The device owns the bulk scan (ops/pallas_scan.py); this C++ module is the
 // host-side fast path for the same DFA tables: streaming scans over
 // chunks that are too small to be worth a device round-trip, match
 // counting, and the leading-byte prefilter.  It plays the role the

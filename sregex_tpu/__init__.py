@@ -1,7 +1,7 @@
-"""sregex-tpu: a TPU-native streaming regex engine.
+"""sregex-tpu: a streaming regex engine for accelerators (NVIDIA GPUs).
 
 A from-scratch rebuild of the capabilities of libsregex (jnsquire/sregex)
-designed TPU-first:
+designed for the device first:
 
   - host frontend: regex text -> AST -> NFA bytecode (parser.py,
     compiler.py), semantics-equivalent to the reference's bison parser

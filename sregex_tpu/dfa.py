@@ -1,4 +1,4 @@
-"""NFA -> DFA table compiler: the TPU-native successor of the
+"""NFA -> DFA table compiler: the device-first successor of the
 reference's DynASM x86-64 JIT (/root/reference/src/sregex/
 sre_vm_thompson_x64.dasc).
 
@@ -791,8 +791,8 @@ class DfaCtx:
 
         if len(input_):
             arr = cmap[np.frombuffer(input_, dtype=np.uint8)]
-            # sequential scan; the TPU kernels vectorize this via
-            # per-chunk transfer functions (ops/scan.py)
+            # sequential scan; the device tiers parallelize it over
+            # chunks (ops/pallas_scan.py, ops/scan.py)
             for c in arr:
                 if match[s, c]:
                     self.state = s

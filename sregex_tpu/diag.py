@@ -1,7 +1,7 @@
 """Scan observability: per-scan stats records and loud degradation.
 
 The reference's only introspection is the per-TU ``dd()`` trace macro
-(ddebug.h:13-26).  A TPU framework deserves more: all the adaptive
+(ddebug.h:13-26).  An accelerator framework deserves more: all the adaptive
 policy lives in the device dispatch (tier selection, chunk
 speculation, escape repair, re-coring), and a production operator
 needs to see which path served a scan and how much of it had to be

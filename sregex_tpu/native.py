@@ -1,34 +1,23 @@
 """ctypes bindings for the native host runtime (csrc/sre_host.cpp).
 
-Builds the shared library on first use with g++ (cached next to the
-source); all entry points degrade gracefully to pure-Python/numpy
-fallbacks when no compiler is available.
+Builds the shared library on first use with g++ (native_build.py:
+keyed by source, flags and host, under build/native/); all entry
+points degrade gracefully to pure-Python/numpy fallbacks when no
+compiler is available.
 """
 
 import ctypes
-import os
-import subprocess
 import threading
 
 import numpy as np
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_CSRC = os.path.join(os.path.dirname(_HERE), "csrc", "sre_host.cpp")
-_SO = os.path.join(os.path.dirname(_HERE), "csrc", "libsrehost.so")
+from . import native_build
 
 _lock = threading.Lock()
 _lib = None
 _tried = False
 
-
-def _build():
-    cmd = ["g++", "-O3", "-march=native", "-fopenmp", "-shared",
-           "-fPIC", "-o", _SO, _CSRC]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True)
-    except subprocess.CalledProcessError:
-        cmd.remove("-fopenmp")
-        subprocess.run(cmd, check=True, capture_output=True)
+_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC"]
 
 
 def get_lib():
@@ -39,10 +28,8 @@ def get_lib():
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_CSRC)):
-                _build()
-            lib = ctypes.CDLL(_SO)
+            lib = native_build.load("sre_host.cpp",
+                                    [_FLAGS + ["-fopenmp"], _FLAGS])
         except Exception:
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -8,18 +8,14 @@ Falls back to the Python engine when no compiler is available
 """
 
 import ctypes
-import os
-import subprocess
 import threading
 
 import numpy as np
 
+from . import native_build
 from .consts import (OP_IN, OP_NOTIN, OP_CHAR, OP_SAVE, OP_ASSERT,
                      OP_MATCH)
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_CSRC = os.path.join(os.path.dirname(_HERE), "csrc", "sre_pike.cpp")
-_SO = os.path.join(os.path.dirname(_HERE), "csrc", "libsrepike.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -33,13 +29,8 @@ def get_lib():
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_CSRC)):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-o", _SO, _CSRC],
-                    check=True, capture_output=True)
-            lib = ctypes.CDLL(_SO)
+            lib = native_build.load(
+                "sre_pike.cpp", [["-O3", "-march=native", "-shared", "-fPIC"]])
         except Exception:
             return None
         i32p = ctypes.POINTER(ctypes.c_int32)

@@ -14,17 +14,13 @@ engines behind Scanner.finditer/sub (docs/CONFORMANCE.md quirks
 """
 
 import ctypes
-import os
-import subprocess
 import threading
 
 import numpy as np
 
+from . import native_build
 from .tdfa import Tdfa, TdfaTooLarge, SRC_UNSET, SRC_CUR, SRC_NEXT
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_CSRC = os.path.join(os.path.dirname(_HERE), "csrc", "sre_tdfa.cpp")
-_SO = os.path.join(os.path.dirname(_HERE), "csrc", "libsretdfa.so")
 
 _lock = threading.Lock()
 _lib = None
@@ -50,13 +46,8 @@ def get_lib():
             return _lib
         _tried = True
         try:
-            if (not os.path.exists(_SO)
-                    or os.path.getmtime(_SO) < os.path.getmtime(_CSRC)):
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     "-o", _SO, _CSRC],
-                    check=True, capture_output=True)
-            lib = ctypes.CDLL(_SO)
+            lib = native_build.load(
+                "sre_tdfa.cpp", [["-O3", "-march=native", "-shared", "-fPIC"]])
         except Exception:
             return None
         i8p = ctypes.POINTER(ctypes.c_int8)

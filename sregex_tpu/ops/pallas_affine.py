@@ -27,7 +27,8 @@ piecewise affine (P too large) simply decline to the wide/big tiers.
 
 Everything else — 4/8-bit class packing, chunk speculation, swarm
 validation, native repair, _summarize, the spec_* drivers — is reused
-unchanged; this is just another tables class with its own kernel.
+unchanged; this is just another tables class with its own byte step
+for the plain chunk walk (ops/scan_kernel.walk_plain_step).
 
 Replaces the reference JIT's per-thread bytecode dispatch for the
 counted-rep class (sre_vm_thompson_x64.dasc:738-889) with work that
@@ -39,18 +40,14 @@ import functools
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pallas_scan import (GROUPS, WORDS_PER_ITER, _summarize,
-                          max_chunk_bytes,
-                          compiler_params as _compiler_params)
+from .pallas_scan import _summarize, max_chunk_bytes
+from .scan_kernel import walk_plain_step
 
 _VAL_MASK = (1 << 27) - 1     # |delta*ncls + OFF| or absolute premult
 _MODE_BIT = 28                # 1 = relative (state + delta)
 _MATCH_BIT = 30
-MAX_PIECES = 48               # lookup stays <= a few lane rows
+MAX_PIECES = 48               # lookup table stays small
 MAX_ENTRIES = 1 << 26         # S * ncls cap (premult fits the mask)
 
 
@@ -232,17 +229,11 @@ class SpecTablesAffine:
                 ent[p * ncls + c] = e
         assert int(ent.max()) < 2 ** 31
         self.rows = -(-(P * ncls) // 128)
-        flat = np.zeros(self.rows * 128, dtype=np.int32)
-        flat[:P * ncls] = ent.astype(np.int32)
-        rows = flat.reshape(self.rows, 128)
-        self.fused_rows = jnp.asarray(np.ascontiguousarray(
-            np.broadcast_to(rows[:, None, :],
-                            (self.rows, 8, 128)).copy()))
+        self.table = jnp.asarray(ent.astype(np.int32))
         self.bits = 4 if ncls <= 16 else 8
         self.cpw = 8 if self.bits == 4 else 4
         self.warmup = 4 * self.cpw
-        self.max_chunk = max_chunk_bytes(self.rows, self.cpw,
-                                         self.warmup)
+        self.max_chunk = max_chunk_bytes(self.cpw)
         self.class_map = dfa.class_map.astype(np.uint8)
         self.match_eof = dfa.match_eof
 
@@ -266,105 +257,49 @@ class SpecTablesAffine:
     def _scan(self, data, state0, j0, C, bad_tail, J, W, COUNT=False,
               mesh=None, axis=None, esc=None):
         return _spec_scan_affine(
-            data, state0, j0, self.fused_rows, C, bad_tail, J=J, W=W,
-            CPW=self.cpw, BITS=self.bits, COUNT=COUNT, R=self.rows,
-            NCLS=self.ncls, BP=self.bp_premult, OFF=self.off,
-            mesh=mesh, axis=axis, ESC=esc)
+            data, state0, j0, self.table, C, bad_tail, W=W,
+            CPW=self.cpw, BITS=self.bits, COUNT=COUNT, NCLS=self.ncls,
+            BP=self.bp_premult, OFF=self.off, mesh=mesh, axis=axis,
+            ESC=esc)
 
 
-def _kernel_affine(data_ref, state0_ref, j0_ref, fused_ref,
-                   phi_ref, fm_ref, swarm_ref, *, J, W, CPW, BITS, R,
-                   NCLS, BP, OFF, COUNT=False):
-    """Affine variant: piece id by static-breakpoint compares, one
+def _affine_step(table, NCLS, BP, OFF):
+    """Byte step: piece id by static-breakpoint compares, one
     small-table gather, select(mode, state+delta, absolute)."""
-    G = GROUPS
-    CMASK = (1 << BITS) - 1
-    frows = [fused_ref[r] for r in range(R)]
-
-    def lookup(idx):
-        lane = idx & 127
-        e = jnp.take_along_axis(frows[0], lane, axis=1)
-        if R > 1:
-            hi = idx >> 7
-            for r in range(1, R):
-                er = jnp.take_along_axis(frows[r], lane, axis=1)
-                e = jnp.where(hi == r, er, e)
-        return e
-
-    def step_state(state, cls):
+    def step(state, cls):
         pid = jnp.zeros(state.shape, jnp.int32)
         for bp in BP:
             pid = pid + (state >= bp).astype(jnp.int32)
-        e = lookup(pid * NCLS + cls)
+        e = jnp.take(table, pid * NCLS + cls, mode="clip")
         val = e & _VAL_MASK
         rel = (e >> _MODE_BIT) & 1
         nxt = jnp.where(rel == 1, state + val - OFF, val)
-        mbit = (e >> _MATCH_BIT) & 1
-        return nxt, mbit
-
-    def warm_step(wi, states):
-        words = [data_ref[0, wi, g] for g in range(G)]
-        for b in range(CPW):
-            j = wi * CPW + b
-            for g in range(G):
-                cls = (words[g] >> (BITS * b)) & CMASK
-                nxt, _ = step_state(states[g], cls)
-                states = states[:g] + (jnp.where(
-                    j >= j0_ref[0, g], nxt, states[g]),) + \
-                    states[g + 1:]
-        return states
-
-    states = tuple(state0_ref[0, g] for g in range(G))
-    states = lax.fori_loop(0, W // CPW, warm_step, states)
-    for g in range(G):
-        swarm_ref[0, g] = states[g]
-
-    WPI = WORDS_PER_ITER
-
-    def step(it, carry):
-        states, maccs = carry
-        base = W // CPW + it * WPI
-        slab = data_ref[0, pl.ds(base, WPI)]
-        for w in range(WPI):
-            for b in range(CPW):
-                ns, ms = [], []
-                for g in range(G):
-                    cls = (slab[w, g] >> (BITS * b)) & CMASK
-                    nxt, mbit = step_state(states[g], cls)
-                    ns.append(nxt)
-                    ms.append(mbit)
-                if COUNT:
-                    maccs = tuple(maccs[g] + ms[g] for g in range(G))
-                else:
-                    maccs = tuple(maccs[g] | ms[g] for g in range(G))
-                states = tuple(ns)
-        return states, maccs
-
-    z = jnp.zeros((8, 128), jnp.int32)
-    maccs = tuple(z for _ in range(G))
-    n_iter = (J - W) // (CPW * WPI)
-    states, maccs = lax.fori_loop(0, n_iter, step, (states, maccs))
-    for g in range(G):
-        phi_ref[0, g] = states[g]
-        fm_ref[0, g] = maccs[g]
+        return nxt, (e >> _MATCH_BIT) & 1
+    return step
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "J", "W", "CPW", "BITS", "COUNT", "R", "NCLS", "BP", "OFF",
-    "mesh", "axis", "ESC"))
-def _spec_scan_affine(data, state0, j0, fused_rows, C, bad_tail, *,
-                      J, W, CPW, BITS, R, NCLS, BP, OFF, COUNT=False,
-                      mesh=None, axis=None, ESC=None):
+    "W", "CPW", "BITS", "COUNT", "NCLS", "BP", "OFF", "mesh", "axis",
+    "ESC"))
+def _spec_scan_affine(data, state0, j0, table, C, bad_tail, *, W, CPW,
+                      BITS, NCLS, BP, OFF, COUNT=False, mesh=None,
+                      axis=None, ESC=None):
     """Driver with the wide tier's contract (3 int32 planes)."""
-    from .pallas_scan import _dispatch_kernel
-    kernel = functools.partial(_kernel_affine, J=J, W=W, CPW=CPW,
-                               BITS=BITS, R=R, NCLS=NCLS, BP=BP,
-                               OFF=OFF, COUNT=COUNT)
-    fused_spec = pl.BlockSpec((R, 8, 128), lambda i: (0, 0, 0),
-                              memory_space=pltpu.VMEM)
-    phi, fm, swarm = _dispatch_kernel(kernel, data, state0, j0,
-                                      fused_rows, fused_spec, mesh,
-                                      axis)
+    def run(d, s0, j0_, t):
+        return walk_plain_step(d, s0, j0_, _affine_step(t, NCLS, BP, OFF),
+                               W=W, CPW=CPW, BITS=BITS, COUNT=COUNT)
+
+    if mesh is None:
+        phi, fm, swarm = run(data, state0, j0, table)
+    else:
+        from jax.sharding import PartitionSpec as P
+        from jax import shard_map
+        phi, fm, swarm = shard_map(
+            run, mesh=mesh,
+            in_specs=(P(axis), P(axis), P(axis), P()),
+            out_specs=(P(axis), P(axis), P(axis)),
+            check_vma=False,
+        )(data, state0, j0, table)
     summary, _ = _summarize(phi, fm, swarm, state0, C, bad_tail,
                             COUNT, ESC=ESC)
     packed = jnp.stack([phi, fm, swarm])

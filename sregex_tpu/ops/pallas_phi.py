@@ -1,64 +1,48 @@
-"""Exact transfer-composition scan (the φ kernel): corpus-independent
+"""Exact transfer-composition scan (the φ tier): corpus-independent
 device rate with ZERO speculation and ZERO native repair.
 
 The speculative tiers (pallas_scan.py) bet that a chunk's entry state
 is determined by its trailing warmup window.  Machines whose state
 depends on unboundedly old history lose that bet on every chunk —
 modular/parity structure ((?:aa)*b), or counted bounds past the
-warmup ladder — and degrade to native per-chunk repair
-(docs/PERFORMANCE.md "known floor").  The reference never degrades
-this way: its per-byte cost is corpus-independent
-(sre_vm_thompson_x64.dasc:738-889).
+warmup ladder — and degrade to native per-chunk repair.  The
+reference never degrades this way: its per-byte cost is
+corpus-independent (sre_vm_thompson_x64.dasc:738-889).
 
-This kernel restores corpus-independence for S <= 128 (plain-state)
+This tier restores corpus-independence for S <= 1024 plain-state
 machines by computing, per chunk, the FULL transfer function φ: the
 exit state (and match count / first-match offset) for EVERY possible
-entry state simultaneously — the φ vector lives in lanes.  Chunks
-then compose associatively ON DEVICE (jax.lax.associative_scan with
-gather-composition), so the readback is one small summary regardless
-of corpus size; prefix transfers give every chunk's true entry for
-free (the scan driver pins the match position with one native chunk
-scan from the exact entry).  Exactness is unconditional by
-construction — there is nothing to validate and nothing to repair.
+entry state simultaneously — a [chunks, S] state array advanced by
+one table gather per byte.  Chunks then compose associatively ON
+DEVICE (a tree reduce for counts, jax.lax.associative_scan for first
+matches), so the readback is one small summary regardless of corpus
+size; prefix transfers give every chunk's true entry for free (the
+scan driver pins the match position with one native chunk scan from
+the exact entry).  Exactness is unconditional by construction — there
+is nothing to validate and nothing to repair.
 
-Lane packing: a machine with S plain states uses S lanes per φ
-vector, so nseg = 128 // S chunks ride one [8,128] tile side by side
-(G groups x 8 sublanes x nseg segments chunks per grid step).  Tiny
-machines — exactly the never-converging parity class — pack 16-60
-segments and run near the speculative tier's rate; S = 128 costs 32x
-the speculative kernel's lanes and lands ~1-2 GB/s: still far above
-the native-repair floor, with zero host CPU.
-
-Data layout per chunk: 4-bit class words w = 0..Kw-1 live at
-[plane w // WL, lane (w % WL) * nseg + seg] (WL = 128 // nseg), so
-one lane-gather per word broadcasts each segment's word across its
-φ lanes.  No warmup, no window overlap: chunk c covers exactly bytes
-[cK, (c+1)K); the ragged tail finishes natively from the composed
-exit state.
+Data layout: chunk c covers exactly bytes [cK, (c+1)K) (no warmup, no
+window overlap), packed into int32 words [Cp, K // cpw]; the ragged
+tail finishes natively from the composed exit state.  Per-byte work
+is O(S) by construction (a dense transfer needs S trajectories).
 """
 
 import functools
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .pallas_scan import (GROUPS, _MATCH_SHIFT, _STATE_MASK,
-                          compiler_params as _compiler_params,
-                          footprint_bytes as _footprint)
+from .pallas_scan import _MATCH_SHIFT, _STATE_MASK, flat_table
 
 _SENT = np.int32(1 << 30)     # "no match" sentinel for fm lanes
+_CHUNK_PAD = 256              # chunk-count granularity (fewer shapes)
 
 
 class PhiTables:
-    """Host-side prep of a Dfa for the φ kernel.  S <= 128 plain
-    states; S * ncls <= 1024 (row-select chain like the wide tier —
-    the never-converging machines this tier exists for are tiny, so
-    the cap is generous).  4-bit class packing for ncls <= 16; wide
+    """Host-side prep of a Dfa for the φ tier.  S <= 128 plain states,
+    S * ncls <= MAX_ENTRIES.  4-bit class packing for ncls <= 16; wide
     alphabets (17..256 classes, e.g. multi-regex fusions with parity
     structure) ride 8-bit data words like the other tiers — half the
     per-word density, same exactness."""
@@ -75,21 +59,14 @@ class PhiTables:
         if S * ncls > self.MAX_ENTRIES:
             raise ValueError("S*ncls = %d exceeds the phi budget"
                              % (S * ncls))
+        self._init(dfa)
+
+    def _init(self, dfa):
+        S, ncls = dfa.nstates, dfa.nclasses
         self.dfa = dfa
         self.nstates = S
         self.ncls = ncls
-        self.rows = -(-(S * ncls) // 128)
-        self.nseg = max(1, 128 // S)
-        fused = np.zeros(self.rows * 128, dtype=np.int32)
-        for st in range(S):
-            for c in range(ncls):
-                nxt = int(dfa.trans[st, c]) * ncls
-                m = int(dfa.match[st, c]) << _MATCH_SHIFT
-                fused[st * ncls + c] = nxt | m
-        rows = fused.reshape(self.rows, 128)
-        self.fused_rows = jnp.asarray(np.ascontiguousarray(
-            np.broadcast_to(rows[:, None, :],
-                            (self.rows, 8, 128)).copy()))
+        self.table = flat_table(dfa.trans, dfa.match, ncls)
         self.class_map = dfa.class_map.astype(np.uint8)
         self.bits = 4 if ncls <= 16 else 8
         self.cpw = 8 if self.bits == 4 else 4
@@ -99,34 +76,15 @@ class PhiTables:
         self.last_repair = None
 
 
-class PhiTablesBig:
-    """φ tier for 128 < S <= 1024 plain states (VERDICT r3 #3: the
-    exact corpus-independent tier must reach the machines that
-    actually hit the native-repair floor, e.g. b(?:aa)*b-class
-    parity/counter machines with a few hundred states).
-
-    Layout: one chunk's φ vector spans SB = ceil(S/128) SUBLANES of a
-    [8,128] tile (a sublane-group), so a tile carries 8//SB chunks
-    side by side; slot (s, l) holds entry state (s % SB) * 128 + l.
-    The chunk's packed data words are replicated across its group's
-    sublanes (word w at plane w // 128, lane w % 128), so one
-    constant-index lane gather per word broadcasts it to every φ lane
-    of the group.  Lookup is the standard R-row select chain over the
-    row-broadcast fused table.
-
-    Per-byte cost is O(S) by construction (a dense transfer needs S
-    trajectories); the win over the native-repair floor is that all
-    of it is branch-free vector work with zero host CPU and zero
-    readback beyond the summary."""
+class PhiTablesBig(PhiTables):
+    """φ tier for 128 < S <= 1024 plain states: the exact
+    corpus-independent tier must reach the machines that actually hit
+    the native-repair floor, e.g. b(?:aa)*b-class parity/counter
+    machines with a few hundred states.  Same walk as PhiTables; the
+    table is capped at MAX_ROWS 128-entry rows."""
 
     MAX_STATES = 1024
-
-    def _row_cap(self):
-        # interpret-mode CPU cannot trace very long select chains
-        env = os.environ.get("SREGEX_PHI_MAX_ROWS")
-        if env is not None:
-            return int(env)
-        return 64 if jax.default_backend() != "cpu" else 32
+    MAX_ROWS = 32
 
     def __init__(self, dfa):
         S, ncls = dfa.nstates, dfa.nclasses
@@ -137,198 +95,61 @@ class PhiTablesBig:
                              % (self.MAX_STATES, S))
         if ncls > 256:
             raise ValueError("more than 256 byte classes (%d)" % ncls)
-        self.rows = -(-(S * ncls) // 128)
-        if self.rows > self._row_cap():
+        if -(-(S * ncls) // 128) > self.MAX_ROWS:
             raise ValueError("S*ncls = %d exceeds the big-phi row "
                              "budget" % (S * ncls))
-        self.dfa = dfa
-        self.nstates = S
-        self.ncls = ncls
-        sb = -(-S // 128)
-        self.SB = 1 << (sb - 1).bit_length()     # power-of-two group
-        self.CPT = 8 // self.SB                  # chunks per tile
-        fused = np.zeros(self.rows * 128, dtype=np.int32)
-        for st in range(S):
-            for c in range(ncls):
-                nxt = int(dfa.trans[st, c]) * ncls
-                m = int(dfa.match[st, c]) << _MATCH_SHIFT
-                fused[st * ncls + c] = nxt | m
-        rows = fused.reshape(self.rows, 128)
-        self.fused_rows = jnp.asarray(np.ascontiguousarray(
-            np.broadcast_to(rows[:, None, :],
-                            (self.rows, 8, 128)).copy()))
-        self.class_map = dfa.class_map.astype(np.uint8)
-        self.bits = 4 if ncls <= 16 else 8
-        self.cpw = 8 if self.bits == 4 else 4
-        self.match_eof = dfa.match_eof
-        self.last_repair = None
-
-
-def _phi_prepare_big(tables, data_np, chunk_len):
-    """Pack FULL chunks into the sublane-group layout.  Returns
-    (device data [B, P, G, 8, 128] int32, C_full, K, None, P, B):
-    word w of the chunk owning sublane-group t lives at
-    [b, w // 128, g, t*SB + any, w % 128] (replicated across the
-    group's SB sublanes)."""
-    K = max(128, (chunk_len // 128) * 128)
-    n = len(data_np)
-    C = n // K
-    raw = np.frombuffer(data_np, dtype=np.uint8) \
-        if not isinstance(data_np, np.ndarray) else data_np
-    G = GROUPS
-    CPT = tables.CPT
-    per_blk = G * CPT
-    B = max(1, -(-C // per_blk))
-    Kw = K // tables.cpw
-    P = -(-Kw // 128)
-
-    cls = np.zeros(B * per_blk * K, dtype=np.uint8)
-    cls[:C * K] = tables.class_map[raw[:C * K]]
-    nib = cls.reshape(-1, tables.cpw)
-    words = nib[:, 0].astype(np.int32)
-    for k in range(1, tables.cpw):
-        words |= nib[:, k].astype(np.int32) << (tables.bits * k)
-    words = words.reshape(B, G, CPT, Kw)
-    pad = P * 128 - Kw
-    if pad:
-        words = np.concatenate(
-            [words, np.zeros(words.shape[:-1] + (pad,), np.int32)],
-            axis=-1)
-    words = words.reshape(B, G, CPT, P, 128)
-    # replicate across the group's SB sublanes: [B, P, G, CPT*SB, 128]
-    rep = np.broadcast_to(words[:, :, :, None, :, :],
-                          (B, G, CPT, tables.SB, P, 128))
-    arr = np.ascontiguousarray(rep.transpose(0, 4, 1, 2, 3, 5))
-    arr = arr.reshape(B, P, G, 8, 128)
-    return jnp.asarray(arr), C, K, None, P, B
-
-
-def _phi_kernel_big(data_ref, fused_ref, phi_ref, acc_ref, *,
-                    Kw, CPW, BITS, S, SB, NCLS, ROWS, COUNT):
-    """Sublane-group φ kernel: G x [8,128] tiles = G * (8 // SB)
-    chunks, S φ-entry states striped over each chunk's SB sublanes."""
-    G = GROUPS
-    frows = [fused_ref[r] for r in range(ROWS)]
-
-    def lookup(idx):
-        lane = idx & 127
-        hi = idx >> 7
-        e = jnp.take_along_axis(frows[0], lane, axis=1)
-        for r in range(1, ROWS):
-            er = jnp.take_along_axis(frows[r], lane, axis=1)
-            e = jnp.where(hi == r, er, e)
-        return e
-
-    lanes = lax.broadcasted_iota(jnp.int32, (8, 128), 1)
-    subl = lax.broadcasted_iota(jnp.int32, (8, 128), 0)
-    plain = (subl % SB) * 128 + lanes          # slot's entry state
-    entry = jnp.minimum(plain, S - 1) * NCLS   # clamp pad slots
-
-    def body(w, carry):
-        plane = w // 128
-        o = w % 128
-        didx = jnp.full((8, 128), o, jnp.int32)
-        out = []
-        for g in range(G):
-            state, acc = carry[g]
-            tile = data_ref[0, plane, g]
-            word = jnp.take_along_axis(tile, didx, axis=1)
-            for b in range(CPW):
-                cls = (word >> (BITS * b)) & ((1 << BITS) - 1)
-                e = lookup(state + cls)
-                if COUNT:
-                    acc = acc + (e >> _MATCH_SHIFT)
-                else:
-                    hit = (e >> _MATCH_SHIFT) > 0
-                    acc = jnp.where(hit & (acc == _SENT),
-                                    w * CPW + b, acc)
-                state = e & _STATE_MASK
-            out.append((state, acc))
-        return tuple(out)
-
-    if COUNT:
-        acc0 = jnp.zeros((8, 128), jnp.int32)
-    else:
-        acc0 = jnp.full((8, 128), _SENT, jnp.int32)
-    carries = tuple((entry, acc0) for _ in range(G))
-    carries = lax.fori_loop(0, Kw, body, carries)
-    for g in range(G):
-        phi_ref[0, g] = carries[g][0]
-        acc_ref[0, g] = carries[g][1]
+        self._init(dfa)
 
 
 @functools.partial(jax.jit, static_argnames=(
-    "Kw", "CPW", "BITS", "S", "SB", "NCLS", "ROWS", "COUNT", "K"))
-def _phi_run_big(data, fused, C, entry_state, *, Kw, CPW, BITS, S,
-                 SB, NCLS, ROWS, COUNT, K):
-    """Big-φ kernel + on-device composition; same summary contract as
-    _phi_run."""
-    B, P, G = data.shape[0], data.shape[1], data.shape[2]
-    CPT = 8 // SB
-    kernel = functools.partial(_phi_kernel_big, Kw=Kw, CPW=CPW,
-                               BITS=BITS, S=S, SB=SB, NCLS=NCLS,
-                               ROWS=ROWS, COUNT=COUNT)
-    interpret = jax.default_backend() == "cpu"
-    phi, acc = pl.pallas_call(
-        kernel,
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec((1, P, G, 8, 128), lambda i: (i, 0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ROWS, 8, 128), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=_compiler_params(
-            _footprint(P, ROWS)),
-    )(data, fused)
+    "CPW", "BITS", "S", "NCLS", "COUNT", "K"))
+def _phi_run(data, table, C, entry_state, *, CPW, BITS, S, NCLS,
+             COUNT, K):
+    """Per-chunk transfers + on-device composition.  data: int32
+    [Cp, K // CPW] packed words.  Returns a small summary:
 
-    # slots -> [chunks, S]: chunk order (b, g, t) with the chunk's S
-    # states striped (s_local, lane) = plain id s_local*128 + lane
-    def to_cs(x):
-        x = x.reshape(B, G, CPT, SB * 128)
-        return x.reshape(B * G * CPT, SB * 128)[:, :S]
+    COUNT: [exit_plain, total_count]
+    scan : [exit_plain, first_abs or -1, fire_chunk or -1,
+            fire_entry_plain]
+    """
+    Cp, Kw = data.shape
+    cmask = (1 << BITS) - 1
+    entry = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32) * NCLS,
+                             (Cp, S))
 
-    Ctot = B * G * CPT
-    cidx = jnp.arange(Ctot, dtype=jnp.int32)[:, None]
-    ident = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32),
-                             (Ctot, S))
-    phi_cs = jnp.where(cidx < C, to_cs(phi) // NCLS, ident)
-    acc_cs = jnp.where(cidx < C, to_cs(acc),
-                       jnp.int32(0) if COUNT else _SENT)
-    return _compose(phi_cs, acc_cs, C, K, Ctot, entry_state, COUNT)
+    def body(w, carry):
+        state, acc = carry
+        word = lax.dynamic_index_in_dim(data, w, axis=1)    # [Cp, 1]
+        for b in range(CPW):
+            cls = (word >> (BITS * b)) & cmask
+            e = jnp.take(table, state + cls, mode="clip")
+            if COUNT:
+                acc = acc + (e >> _MATCH_SHIFT)
+            else:
+                hit = (e >> _MATCH_SHIFT) > 0
+                acc = jnp.where(hit & (acc == _SENT), w * CPW + b, acc)
+            state = e & _STATE_MASK
+        return state, acc
+
+    acc0 = jnp.full((Cp, S), 0 if COUNT else _SENT, jnp.int32)
+    phi, acc = lax.fori_loop(0, Kw, body, (entry, acc0))
+    # pad chunks (>= C) become IDENTITY transfers so composing over
+    # the full padded axis equals composing the real prefix — keeps
+    # every shape static (no per-corpus-size recompiles).  Scan mode
+    # composes (phi, first-match ABS offset): lengths are uniform (K
+    # per chunk), so offsets rebase via fm_abs = c*K + j (_compose).
+    cidx = jnp.arange(Cp, dtype=jnp.int32)[:, None]
+    phi_cs = jnp.where(cidx < C, phi // NCLS, entry // NCLS)
+    acc_cs = jnp.where(cidx < C, acc, jnp.int32(0) if COUNT else _SENT)
+    return _compose(phi_cs, acc_cs, C, K, Cp, entry_state, COUNT)
 
 
 def _compose(phi_cs, acc_cs, C, K, Ctot, entry_state, COUNT):
-    """Associative composition of per-chunk transfers (shared by the
-    lane-packed and sublane-group kernels); returns the summary.
-
-    The transfer vectors are padded to a 128-lane multiple with
-    identity columns (unaligned minor-dim gathers lowered ~10x slower
-    on the v5e: the first big-φ hardware run spent 5.5 of 6 s in this
-    composition at S=501).  COUNT mode uses a binary TREE REDUCE
-    instead of associative_scan — no prefixes are needed for a total,
-    which halves the gather work and materializes no prefix arrays."""
-    S = phi_cs.shape[1]
-    Sp = -(-S // 128) * 128
-    if Sp != S:
-        padi = jnp.broadcast_to(jnp.arange(S, Sp, dtype=jnp.int32),
-                                (Ctot, Sp - S))
-        phi_cs = jnp.concatenate([phi_cs, padi], axis=1)
-        acc_cs = jnp.concatenate(
-            [acc_cs, jnp.full((Ctot, Sp - S),
-                              jnp.int32(0) if COUNT else _SENT,
-                              jnp.int32)], axis=1)
+    """Associative composition of per-chunk transfers; returns the
+    summary.  COUNT mode uses a binary TREE REDUCE instead of
+    associative_scan — no prefixes are needed for a total, which
+    halves the gather work and materializes no prefix arrays."""
+    Sp = phi_cs.shape[1]
     cidx = jnp.arange(Ctot, dtype=jnp.int32)[:, None]
     if COUNT:
         n2 = 1 << max(0, (Ctot - 1)).bit_length()
@@ -369,184 +190,33 @@ def _compose(phi_cs, acc_cs, C, K, Ctot, entry_state, COUNT):
                       fire_chunk, fire_entry])
 
 
-def _phi_prepare(tables, data_np, chunk_len):
-    """Pack FULL chunks into the φ lane layout.  Returns
-    (device data [B, P, G, 8, 128] int32, C_full, K, WL, P, B)."""
+def phi_prepare(tables, data_np, chunk_len=2048):
+    """Pack FULL chunks into [Cp, K // cpw] words.  Returns (device
+    data, C_full, K); K is chunk_len rounded down to 64 bytes."""
     K = max(64, (chunk_len // 64) * 64)
     n = len(data_np)
     C = n // K                      # full chunks only (tail on host)
     raw = np.frombuffer(data_np, dtype=np.uint8) \
         if not isinstance(data_np, np.ndarray) else data_np
-    nseg = tables.nseg
-    G = GROUPS
-    per_blk = G * 8 * nseg
-    B = max(1, -(-C // per_blk))
-    Kw = K // tables.cpw
-    WL = 128 // nseg                # words per plane per segment
-    P = -(-Kw // WL)
-
-    cls = np.zeros(B * per_blk * K, dtype=np.uint8)
+    Cp = max(1, -(-C // _CHUNK_PAD)) * _CHUNK_PAD
+    cls = np.zeros(Cp * K, dtype=np.uint8)
     cls[:C * K] = tables.class_map[raw[:C * K]]
     nib = cls.reshape(-1, tables.cpw)
     words = nib[:, 0].astype(np.int32)
     for k in range(1, tables.cpw):
         words |= nib[:, k].astype(np.int32) << (tables.bits * k)
-    words = words.reshape(B, G, 8, nseg, Kw)
-    pad = P * WL - Kw
-    if pad:
-        words = np.concatenate(
-            [words, np.zeros(words.shape[:-1] + (pad,), np.int32)],
-            axis=-1)
-    words = words.reshape(B, G, 8, nseg, P, WL)
-    # lane = (w % WL) * nseg + seg
-    arr = np.ascontiguousarray(words.transpose(0, 4, 1, 2, 5, 3))
-    arr = arr.reshape(B, P, G, 8, WL * nseg)
-    if WL * nseg < 128:
-        z = np.zeros((B, P, G, 8, 128 - WL * nseg), np.int32)
-        arr = np.concatenate([arr, z], axis=-1)
-    return jnp.asarray(arr), C, K, WL, P, B
+    return jnp.asarray(words.reshape(Cp, K // tables.cpw)), C, K
 
 
-def _phi_kernel(data_ref, fused_ref, phi_ref, acc_ref, *,
-                Kw, WL, CPW, BITS, S, NSEG, NCLS, ROWS, COUNT):
-    """One grid step: G x [8,128] tiles = G*8*NSEG chunk segments, S
-    φ-entry states per segment.  Outputs per lane: premultiplied exit
-    state and (COUNT) the match-boundary count or (scan) the first
-    match byte offset within the chunk (or _SENT)."""
-    G = GROUPS
-    frows = [fused_ref[r] for r in range(ROWS)]
-
-    def lookup(idx):
-        lane = idx & 127
-        hi = idx >> 7
-        e = jnp.take_along_axis(frows[0], lane, axis=1)
-        for r in range(1, ROWS):
-            er = jnp.take_along_axis(frows[r], lane, axis=1)
-            e = jnp.where(hi == r, er, e)
-        return e
-
-    lanes = lax.broadcasted_iota(jnp.int32, (8, 128), 1)
-    seg = lanes // S                   # segment id of each φ lane
-    entry = (lanes - seg * S) * NCLS   # premultiplied entry state
-
-    def body(w, carry):
-        plane = w // WL
-        o = w % WL
-        didx = seg + o * NSEG
-        out = []
-        for g in range(G):
-            state, acc = carry[g]
-            tile = data_ref[0, plane, g]
-            word = jnp.take_along_axis(tile, didx, axis=1)
-            for b in range(CPW):
-                cls = (word >> (BITS * b)) & ((1 << BITS) - 1)
-                e = lookup(state + cls)
-                if COUNT:
-                    acc = acc + (e >> _MATCH_SHIFT)
-                else:
-                    hit = (e >> _MATCH_SHIFT) > 0
-                    acc = jnp.where(hit & (acc == _SENT),
-                                    w * CPW + b, acc)
-                state = e & _STATE_MASK
-            out.append((state, acc))
-        return tuple(out)
-
-    if COUNT:
-        acc0 = jnp.zeros((8, 128), jnp.int32)
-    else:
-        acc0 = jnp.full((8, 128), _SENT, jnp.int32)
-    carries = tuple((entry, acc0) for _ in range(G))
-    carries = lax.fori_loop(0, Kw, body, carries)
-    for g in range(G):
-        phi_ref[0, g] = carries[g][0]
-        acc_ref[0, g] = carries[g][1]
-
-
-@functools.partial(jax.jit, static_argnames=(
-    "Kw", "WL", "CPW", "BITS", "S", "NSEG", "NCLS", "ROWS", "COUNT",
-    "K"))
-def _phi_run(data, fused, C, entry_state, *, Kw, WL, CPW, BITS, S,
-             NSEG, NCLS, ROWS, COUNT, K):
-    """Kernel + on-device composition.  Returns a small summary:
-
-    COUNT: [exit_plain, total_count]
-    scan : [exit_plain, first_abs or -1, fire_chunk or -1,
-            fire_entry_plain]
-    """
-    B, P, G = data.shape[0], data.shape[1], data.shape[2]
-    kernel = functools.partial(_phi_kernel, Kw=Kw, WL=WL, CPW=CPW,
-                               BITS=BITS, S=S, NSEG=NSEG, NCLS=NCLS,
-                               ROWS=ROWS, COUNT=COUNT)
-    interpret = jax.default_backend() == "cpu"
-    phi, acc = pl.pallas_call(
-        kernel,
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec((1, P, G, 8, 128), lambda i: (i, 0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((ROWS, 8, 128), lambda i: (0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=_compiler_params(
-            _footprint(P, ROWS)),
-    )(data, fused)
-
-    # lanes -> [chunks, S]: chunk order is (b, g, s, seg) with the S
-    # states of a segment contiguous in lanes
-    def to_cs(x):
-        x = x.reshape(B, G, 8, NSEG, S) if NSEG * S == 128 else \
-            x.reshape(B, G, 8, 128)[..., :NSEG * S].reshape(
-                B, G, 8, NSEG, S)
-        return x.reshape(B * G * 8 * NSEG, S)
-
-    Ctot = B * G * 8 * NSEG
-    cidx = jnp.arange(Ctot, dtype=jnp.int32)[:, None]
-    # pad chunks (>= C) become IDENTITY transfers so composing over
-    # the full padded axis equals composing the real prefix — keeps
-    # every shape static (no per-corpus-size recompiles).  Scan mode
-    # composes (phi, first-match ABS offset): lengths are uniform (K
-    # per chunk), so offsets rebase via fm_abs = c*K + j (_compose).
-    ident = jnp.broadcast_to(jnp.arange(S, dtype=jnp.int32),
-                             (Ctot, S))
-    phi_cs = jnp.where(cidx < C, to_cs(phi) // NCLS, ident)
-    acc_cs = jnp.where(cidx < C, to_cs(acc),
-                       jnp.int32(0) if COUNT else _SENT)
-    return _compose(phi_cs, acc_cs, C, K, Ctot, entry_state, COUNT)
-
-
-def phi_prepare(tables, data_np, chunk_len=2048):
-    """Layout-dispatching prep (lane-packed vs sublane-group)."""
-    if isinstance(tables, PhiTablesBig):
-        return _phi_prepare_big(tables, data_np, chunk_len)
-    return _phi_prepare(tables, data_np, chunk_len)
+_phi_prepare = phi_prepare
 
 
 def _phi_dispatch(tables, prepared, C, entry_state, COUNT):
-    data, _, K, WL, P, B = prepared
-    if isinstance(tables, PhiTablesBig):
-        return _phi_run_big(
-            data, tables.fused_rows, jnp.int32(C),
-            jnp.int32(entry_state), Kw=K // tables.cpw,
-            CPW=tables.cpw, BITS=tables.bits, S=tables.nstates,
-            SB=tables.SB, NCLS=tables.ncls, ROWS=tables.rows,
-            COUNT=COUNT, K=K)
-    return _phi_run(
-        data, tables.fused_rows, jnp.int32(C),
-        jnp.int32(entry_state), Kw=K // tables.cpw, WL=WL,
-        CPW=tables.cpw, BITS=tables.bits, S=tables.nstates,
-        NSEG=tables.nseg, NCLS=tables.ncls, ROWS=tables.rows,
-        COUNT=COUNT, K=K)
+    data, _, K = prepared
+    return _phi_run(data, tables.table, jnp.int32(C),
+                    jnp.int32(entry_state), CPW=tables.cpw,
+                    BITS=tables.bits, S=tables.nstates,
+                    NCLS=tables.ncls, COUNT=COUNT, K=K)
 
 
 def phi_count_bytes(tables, data_np, chunk_len=2048, entry_state=0,
@@ -560,7 +230,7 @@ def phi_count_bytes(tables, data_np, chunk_len=2048, entry_state=0,
         return entry_state, 0
     if prepared is None:
         prepared = phi_prepare(tables, data_np, chunk_len)
-    data, C, K, WL, P, B = prepared
+    data, C, K = prepared
     if C == 0:
         return NativeDfa(tables.dfa).count(
             bytes(data_np), entry_state)[::-1]
@@ -589,7 +259,7 @@ def phi_scan_bytes(tables, data_np, chunk_len=2048, entry_state=0,
         return entry_state, -1
     if prepared is None:
         prepared = phi_prepare(tables, data_np, chunk_len)
-    data, C, K, WL, P, B = prepared
+    data, C, K = prepared
     native = NativeDfa(tables.dfa)
     raw = np.frombuffer(data_np, dtype=np.uint8) \
         if not isinstance(data_np, np.ndarray) else data_np

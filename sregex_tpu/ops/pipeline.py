@@ -1,9 +1,9 @@
-"""Pipelined streaming device scan: overlap host->HBM uploads with
-kernel execution across corpus SEGMENTS.
+"""Pipelined streaming device scan: overlap host->device uploads with
+the device walk across corpus SEGMENTS.
 
 The single-buffer drivers (spec_scan_bytes / spec_count_bytes,
 ops/pallas_scan.py) prepare the whole corpus, then scan it — on cold
-data the host->HBM upload serializes ahead of the kernel.  Here the
+data the host->device upload serializes ahead of the walk.  Here the
 corpus arrives as an iterable of segments (file reads, network
 chunks); each segment is prepared and its kernel dispatched WITHOUT
 blocking, so JAX's async dispatch runs segment i's scan while segment

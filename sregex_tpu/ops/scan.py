@@ -1,12 +1,13 @@
-"""Device DFA scan: the TPU hot loop.
+"""Enumerative device DFA scan (the any-size fallback and the
+multi-device composition).
 
-A DFA scan is inherently sequential per stream, so the TPU design
+A DFA scan is inherently sequential per stream, so this design
 parallelizes across the sequence: the input is split into C chunks and
 every chunk computes its full *transfer function* — next-state and
 first-match-offset for ALL S possible entry states simultaneously
 (enumerative data-parallel FSM execution).  Chunk functions compose
 associatively, so the final result is a log-depth reduction; across
-chips the same composition rides all_gather of S-sized vectors
+devices the same composition rides all_gather of S-sized vectors
 (parallel/sharded_scan.py).
 
 Correctness contract: identical boundary semantics to the host DFA
@@ -15,12 +16,11 @@ reference Thompson/JIT engines on the full conformance corpus:
   - match[s][byte] is checked at boundary i BEFORE consuming byte i
   - EOF acceptance is a separate vector, applied by the caller
 
-Layout choices (TPU):
-  - states ride the 128-lane dimension (S padded to a multiple of 128),
-    chunks ride sublanes;
+Layout choices:
+  - chunks x states arrays [C, S] (S padded to a multiple of 128 so
+    few distinct shapes compile);
   - the fused table is byte-major [256, S]: consuming byte b selects a
-    row (uniform across lanes — a cheap row gather), then the per-lane
-    state gather is a take_along_axis in the lane dimension;
+    row, then the per-state gather is a take_along_axis over S;
   - match bit is fused into the table's high bits: one gather per byte
     yields both the next state and the boundary-match flag.
 """
@@ -146,9 +146,8 @@ def reduce_summaries(phi, fm, fid, valid_len):
     block summary (phi [S], fm [S], fid [S]; fm int64 in
     block-absolute offsets).
 
-    Kept as a separate dispatch from chunk_transfer: fusing the long
-    fori_loop and the reduction tree into one XLA computation has
-    pathological compile behavior on TPU, and the reduction is light.
+    Kept as a separate dispatch from chunk_transfer (the reduction is
+    light and compiles on its own).
     Runs under enable_x64 so absolute offsets are genuine int64 (a >2
     GiB buffer otherwise loses matches past the int32 sentinel).
     """

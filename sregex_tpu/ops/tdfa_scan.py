@@ -1,5 +1,5 @@
 """Device TDFA scan: capture registers and match banks updated by
-vectorized select inside the Pallas kernel — the north-star "capture
+vectorized select inside the chunk walk — the north-star "capture
 slots update via vectorized select" path.
 
 The host TDFA (sregex_tpu/tdfa.py) proves that one Pike step
@@ -12,8 +12,9 @@ determinizes to, per (state, byte class):
     regex id.
 
 Those source codes are packed into per-(state,class) nibble tables; the
-kernel advances thousands of streams with 4 lane-gathers per byte and
-resolves every register/bank slot with a short select chain.  This
+walk advances every chunk stream with 4 table gathers per byte and
+resolves every register/bank slot with a short select chain (plain
+jax.numpy/lax: no capture workload has a device kernel of its own).  This
 subsumes the reference's capture machinery (sre_vm_pike.c:814-837 SAVE
 closure, sre_capture.c:59-85 COW update) as branch-free dataflow.
 
@@ -28,34 +29,24 @@ longer than the chunk+warmup window) returns None and the caller falls
 back to the exact multi-pass path — exactness is unconditional,
 speed is for the common case.
 
-Constraints: S * nclasses <= 128 * ROWS (the narrow kernel is ROWS=1;
-larger automata take the WIDE variant — the four per-(state,class)
-tables span ROWS lane rows and every lookup becomes a gather +
-row-select chain, exactly how pallas_scan.py grew SpecTablesWide),
+Constraints: S * nclasses <= MAX_ENTRIES (the four per-(state,class)
+tables are flat arrays indexed by the premultiplied state + class),
 byte classes <= 16 ride 4-bit packed data words; 17..256 classes use
-8-bit packing (cpw=4, chunk clamp derived from the VMEM budget via
-pallas_scan.max_chunk_bytes like every tier), registers/tags <= 13
-with 4-bit source codes or <= 24 (R_MAX8/T_MAX8) with byte codes,
-regex ids <= 127.  The ROWS budget is platform-aware: 4 rows (512
-entries) under interpret-mode CPU, 16 rows (2048 entries) on real
-TPU; SREGEX_TDFA_MAX overrides (in table entries).
+8-bit packing (cpw=4, the chunk clamp of pallas_scan.max_chunk_bytes
+like every tier), registers/tags <= 13 with 4-bit source codes or
+<= 24 (R_MAX8/T_MAX8) with byte codes, regex ids <= 127.
 """
 
 import functools
-import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..tdfa import Tdfa, TdfaTooLarge, SRC_UNSET, SRC_CUR, SRC_NEXT, \
     CTX_BOS
-from .pallas_scan import (GROUPS, TILE, WORDS_PER_ITER, _prepare,
-                          compiler_params as _compiler_params,
-                          footprint_bytes as _footprint)
+from .pallas_scan import GROUPS, TILE, _prepare, max_chunk_bytes
 
 _BAD = np.int32(-(2 ** 30))
 
@@ -72,17 +63,7 @@ T_MAX8 = 24
 R_MAX16 = 48    # 16-bit code planes (2 slots/plane): >= 16-group
 T_MAX16 = 48    # patterns one-pass; resolve chains are R^2 selects
                 # per byte, so only the machines that need them pay
-MAX_ENTRIES = 512        # interpret-mode CPU (4 lane rows)
-MAX_ENTRIES_TPU = 2048   # real hardware (16 lane rows)
-
-
-def _tdfa_max():
-    env = os.environ.get("SREGEX_TDFA_MAX")
-    if env is not None:
-        return int(env)
-    if jax.default_backend() != "cpu":
-        return MAX_ENTRIES_TPU
-    return MAX_ENTRIES
+MAX_ENTRIES = 512        # S * ncls budget of the dense tables
 
 
 def _specials(code_bits):
@@ -114,8 +95,8 @@ def _pack_planes(t, kernel_sids, full2k, ncls, esc=None, R=R_MAX,
     -> kernel id.  esc (kernel id or None): transitions leaving the
     subset go to the ESC sink (its own row: self-loop, no rebuilds,
     no commits) — the hot-core projection.  Returns (rows, planes)
-    with planes = (t_next [rows,8,128], t_regsrc [PR,rows,8,128],
-    t_csrc [PT,rows,8,128], t_cmeta [rows,8,128]); PR/PT =
+    with planes = (t_next [E], t_regsrc [PR, E], t_csrc [PT, E],
+    t_cmeta [E]) flat over E = rows*128 entries; PR/PT =
     ceil(R/slots-per-plane) stacked int32 code planes (slot k lives
     in plane k//spp at bit code_bits*(k%spp))."""
     n_k = len(kernel_sids) + (1 if esc is not None else 0)
@@ -159,12 +140,7 @@ def _pack_planes(t, kernel_sids, full2k, ncls, esc=None, R=R_MAX,
             # reg_codes rows are pre-filled UNSET
 
     def bc(v):
-        # [..., rows*128] -> [..., rows, 8, 128]: each lane row
-        # replicated across sublanes so the kernel's per-row work is
-        # one gather + one select (the SpecTablesWide layout)
-        r = v.reshape(v.shape[:-1] + (rows, 128))
-        return jnp.asarray(np.ascontiguousarray(np.broadcast_to(
-            r[..., None, :], r.shape[:-1] + (8, 128)).copy()))
+        return jnp.asarray(np.ascontiguousarray(v))
 
     def pack(codes, n):
         P = max(1, -(-n // spp))
@@ -204,7 +180,7 @@ class TdfaSpecTables:
             raise TdfaTooLarge("too many tracked tags (%d)" % len(tags))
         if prog.nregexes > 127:
             raise TdfaTooLarge("too many regexes (%d)" % prog.nregexes)
-        budget = _tdfa_max()
+        budget = MAX_ENTRIES
         t = Tdfa(prog, tags=tags, max_states=max(256, budget // 2),
                  max_regs=R_MAX16)
         self.tdfa = t
@@ -263,9 +239,8 @@ class TdfaSpecTables:
         (self.t_next, self.t_regsrc, self.t_csrc,
          self.t_cmeta) = planes
 
-        # reuse the boolean kernel's data prep (same packing/layout);
-        # >16 classes take 8-bit words with the untagged tiers' VMEM
-        # chunk clamp (pallas_scan.py effective_chunk)
+        # reuse the boolean tiers' data prep (same packing/layout);
+        # >16 classes take 8-bit words
         if ncls > 16:
             self.bits = 8
             self.cpw = 4
@@ -273,21 +248,8 @@ class TdfaSpecTables:
             self.bits = 4
             self.cpw = 8
         self.warmup = 4 * self.cpw
-        self.max_chunk = self._vmem_chunk_clamp()
+        self.max_chunk = max_chunk_bytes(self.cpw)
         self.class_map = t.class_map.astype(np.uint8)
-
-    def _vmem_chunk_clamp(self):
-        """Shape-derived VMEM chunk clamp (pallas_scan.max_chunk_bytes)
-        accounting for the tagged kernel's extras beyond the shared
-        data block: four table plane stacks (single-buffered, constant
-        index maps) and the double-buffered register/bank output
-        blocks."""
-        from .pallas_scan import max_chunk_bytes
-        plane_rows = self.rows * (
-            2 + self.t_regsrc.shape[0] + self.t_csrc.shape[0])
-        out_extra = 2 * ((self.ntags + 1) + self.nregs) * GROUPS * 4096
-        return max_chunk_bytes(plane_rows, self.cpw, self.warmup,
-                               extra_bytes=out_extra)
 
     # kernel <-> full state id mapping (identity for the full tables;
     # the hot-core projection overrides both)
@@ -317,7 +279,7 @@ class TdfaCoreTables(TdfaSpecTables):
     unconditional, the sample only sets the escape rate.
 
     One-pass device captures thus extend past the dense budget
-    (S*ncls <= 2048 on TPU) to any tagged machine whose HOT set fits,
+    (S*ncls <= MAX_ENTRIES) to any tagged machine whose HOT set fits,
     e.g. counted-repetition capture patterns whose state count
     explodes but whose corpus-visited core is small."""
 
@@ -368,7 +330,7 @@ class TdfaCoreTables(TdfaSpecTables):
         counts[seed] = counts.get(seed, 0) + 1
         total = float(sum(counts.values()))
 
-        budget = _tdfa_max()
+        budget = MAX_ENTRIES
         ncls = t.nclasses
         h_cap = budget // ncls - 1          # ESC takes one row block
         order = sorted(counts, key=lambda s: -counts[s])
@@ -421,7 +383,7 @@ class TdfaCoreTables(TdfaSpecTables):
             self.bits = 4
             self.cpw = 8
         self.warmup = 4 * self.cpw
-        self.max_chunk = self._vmem_chunk_clamp()
+        self.max_chunk = max_chunk_bytes(self.cpw)
         self.class_map = t.class_map.astype(np.uint8)
 
     is_core = True
@@ -447,50 +409,33 @@ def _resolve(code, regs, j_cur, j_next, code_bits):
     return v
 
 
-def _tdfa_kernel(data_ref, state0_ref, j0_ref,
-                 next_ref, regsrc_ref, csrc_ref, cmeta_ref,
-                 phi_ref, swarm_ref, bank_ref, regs_ref, *,
-                 J, W, CPW, BITS, CODE, R, T, ROWS):
-    """One grid step = one [G*TILE]-stream block.  data block
-    [1, J//CPW, G, 8, 128] packed classes (BITS per class).  Tables
-    span ROWS lane rows ([ROWS, 8, 128]); ROWS == 1 is the narrow
-    fast path (single gather), larger automata select the row by the
-    index's high bits (the SpecTablesWide discipline).  regsrc/csrc
-    are stacked code planes [P, ROWS, 8, 128] (CODE bits per slot,
-    32 // CODE slots per plane); only the planes a machine's R/T
-    actually reach cost a gather (static gate)."""
-    G = GROUPS
+def _tdfa_walk(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta, *,
+               W, CPW, BITS, CODE, R, T):
+    """All chunk streams at once ([B, G, 8, 128] each), one byte per
+    loop iteration.  data [B, J//CPW, G, 8, 128] packed classes (BITS
+    per class); regsrc/csrc are stacked code planes [P, E] (CODE bits
+    per slot, 32 // CODE slots per plane); only the planes a machine's
+    R/T actually reach cost a gather."""
     spp = 32 // CODE
     PR = max(1, -(-R // spp))
     PT = max(1, -(-T // spp))
-    tnext = [next_ref[r] for r in range(ROWS)]
-    tregsrc = [[regsrc_ref[p, r] for r in range(ROWS)]
-               for p in range(PR)]
-    tcsrc = [[csrc_ref[p, r] for r in range(ROWS)]
-             for p in range(PT)]
-    tcmeta = [cmeta_ref[r] for r in range(ROWS)]
+    J = data.shape[1] * CPW
+    shape = state0.shape
 
-    def gath(rows, idx, lane, hi):
-        e = jnp.take_along_axis(rows[0], lane, axis=1)
-        for r in range(1, ROWS):
-            er = jnp.take_along_axis(rows[r], lane, axis=1)
-            e = jnp.where(hi == r, er, e)
-        return e
+    def gath(tab, idx):
+        return jnp.take(tab, idx, mode="clip")
 
-    def one_byte(j, g, state, regs, bank, live):
+    def one_byte(j, state, regs, bank, live):
         """live: traced bool — False freezes (warmup of the true-entry
         stream).  j is a traced scalar (window position)."""
-        wi = j // CPW
-        b = j % CPW
-        word = data_ref[0, wi, g]
-        cls = (word >> (BITS * b)) & ((1 << BITS) - 1)
+        word = lax.dynamic_index_in_dim(data, j // CPW, axis=1,
+                                        keepdims=False)
+        cls = (word >> (BITS * (j % CPW))) & ((1 << BITS) - 1)
         idx = state + cls
-        lane = idx & 127
-        hi = idx >> 7
-        e = gath(tnext, idx, lane, hi)
-        cm = gath(tcmeta, idx, lane, hi)
-        rs = [gath(tregsrc[p], idx, lane, hi) for p in range(PR)]
-        cs = [gath(tcsrc[p], idx, lane, hi) for p in range(PT)]
+        e = gath(t_next, idx)
+        cm = gath(t_cmeta, idx)
+        rs = [gath(t_regsrc[p], idx) for p in range(PR)]
+        cs = [gath(t_csrc[p], idx) for p in range(PT)]
 
         def codeof(planes, k):
             return (planes[k // spp] >> (CODE * (k % spp))) \
@@ -507,26 +452,18 @@ def _tdfa_kernel(data_ref, state0_ref, j0_ref,
             for t in range(T))
         newrid = jnp.where(has, cm >> 1, bank[T])
         newbank = newbank + (newrid,)
-        take = live
-        state = jnp.where(take, e, state)
-        regs = tuple(jnp.where(take, newregs[k], regs[k])
+        state = jnp.where(live, e, state)
+        regs = tuple(jnp.where(live, newregs[k], regs[k])
                      for k in range(R))
-        bank = tuple(jnp.where(take, newbank[t], bank[t])
+        bank = tuple(jnp.where(live, newbank[t], bank[t])
                      for t in range(T + 1))
         return state, regs, bank
 
-    def stream_init(g):
-        state = state0_ref[0, g]
-        j0 = j0_ref[0, g]
-        # true-entry stream (j0 > 0): registers = seed position (= j0);
-        # speculative streams: BAD
-        regs = tuple(jnp.where(j0 > 0, j0, _BAD) for _ in range(R))
-        bank = tuple(jnp.full((8, 128), _BAD, jnp.int32)
-                     for _ in range(T))
-        bank = bank + (jnp.full((8, 128), -1, jnp.int32),)
-        return state, regs, bank
-
-    carries = [stream_init(g) for g in range(G)]
+    # true-entry stream (j0 > 0): registers = seed position (= j0);
+    # speculative streams: BAD
+    regs = tuple(jnp.where(j0 > 0, j0, _BAD) for _ in range(R))
+    bank = tuple(jnp.full(shape, _BAD, jnp.int32) for _ in range(T))
+    bank = bank + (jnp.full(shape, -1, jnp.int32),)
 
     # warmup: j in [0, W) with per-stream freeze below j0.  The
     # speculative warmup advances the STATE only: a register value
@@ -540,42 +477,26 @@ def _tdfa_kernel(data_ref, state0_ref, j0_ref,
     # the trajectory provably equals the true one; anything tracing
     # to the entry or the warmup stays BAD and forces the fallback.
     # (The true-entry stream is frozen below j0 = W and unaffected.)
-    def warm_step(j, carry):
-        out = []
-        for g in range(G):
-            state, regs, bank = carry[g]
-            live = j >= j0_ref[0, g]
-            ns, _, _ = one_byte(j, g, state, regs, bank, live)
-            out.append((ns, regs, bank))
-        return tuple(out)
+    def warm_step(j, state):
+        ns, _, _ = one_byte(j, state, regs, bank, j >= j0)
+        return ns
 
-    carries = lax.fori_loop(0, W, warm_step, tuple(carries))
-    for g in range(G):
-        swarm_ref[0, g] = carries[g][0]
+    swarm = lax.fori_loop(0, W, warm_step, state0)
 
     def step(j, carry):
-        out = []
-        for g in range(G):
-            state, regs, bank = carry[g]
-            out.append(one_byte(j, g, state, regs, bank,
-                                jnp.bool_(True)))
-        return tuple(out)
+        state, rg, bk = carry
+        return one_byte(j, state, rg, bk, jnp.bool_(True))
 
-    carries = lax.fori_loop(W, J, step, carries)
-    for g in range(G):
-        state, regs, bank = carries[g]
-        phi_ref[0, g] = state
-        for t in range(T + 1):
-            bank_ref[t, 0, g] = bank[t]
-        for k in range(R):
-            regs_ref[k, 0, g] = regs[k]
+    phi, regs, bank = lax.fori_loop(W, J, step, (swarm, regs, bank))
+    regs = jnp.stack(regs) if R else jnp.zeros((0,) + shape, jnp.int32)
+    return phi, swarm, jnp.stack(bank), regs
 
 
 @functools.partial(jax.jit,
-                   static_argnames=("J", "W", "CPW", "BITS", "CODE",
-                                    "R", "T", "ROWS"))
+                   static_argnames=("W", "CPW", "BITS", "CODE", "R",
+                                    "T"))
 def _tdfa_scan(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta,
-               C, dead_val, *, J, W, CPW, BITS, CODE, R, T, ROWS=1):
+               C, dead_val, *, W, CPW, BITS, CODE, R, T):
     """Returns (summary int32 [10 + T+1 + R], bank planes, regs planes).
 
     Device-side validation and result extraction:
@@ -589,50 +510,9 @@ def _tdfa_scan(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta,
       [10 .. 10+T] bank values + rid @ lc
       [10+T+1 ..]  exit registers @ the last covered chunk
     """
-    B = data.shape[0]
-    G = GROUPS
-    Jw = J // CPW
-    kernel = functools.partial(_tdfa_kernel, J=J, W=W, CPW=CPW,
-                               BITS=BITS, CODE=CODE, R=R, T=T,
-                               ROWS=ROWS)
-    interpret = jax.default_backend() == "cpu"
-    small = pl.BlockSpec((1, G, 8, 128), lambda i: (i, 0, 0, 0),
-                         memory_space=pltpu.VMEM)
-    planeT = pl.BlockSpec((T + 1, 1, G, 8, 128),
-                          lambda i: (0, i, 0, 0, 0),
-                          memory_space=pltpu.VMEM)
-    planeR = pl.BlockSpec((R, 1, G, 8, 128),
-                          lambda i: (0, i, 0, 0, 0),
-                          memory_space=pltpu.VMEM)
-    tab = pl.BlockSpec((ROWS, 8, 128), lambda i: (0, 0, 0),
-                       memory_space=pltpu.VMEM)
-
-    def codetab(planes):
-        return pl.BlockSpec((planes.shape[0], ROWS, 8, 128),
-                            lambda i: (0, 0, 0, 0),
-                            memory_space=pltpu.VMEM)
-
-    phi, swarm, bank, regs = pl.pallas_call(
-        kernel,
-        grid=(B,),
-        in_specs=[
-            pl.BlockSpec((1, Jw, G, 8, 128), lambda i: (i, 0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            small, small, tab, codetab(t_regsrc), codetab(t_csrc),
-            tab,
-        ],
-        out_specs=[small, small, planeT, planeR],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-            jax.ShapeDtypeStruct((B, G, 8, 128), jnp.int32),
-            jax.ShapeDtypeStruct((T + 1, B, G, 8, 128), jnp.int32),
-            jax.ShapeDtypeStruct((R, B, G, 8, 128), jnp.int32),
-        ],
-        interpret=interpret,
-        compiler_params=_compiler_params(_footprint(
-            Jw, ROWS * (2 + t_regsrc.shape[0] + t_csrc.shape[0]),
-            extra_bytes=2 * ((T + 1) + R) * G * 4096)),
-    )(data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta)
+    phi, swarm, bank, regs = _tdfa_walk(
+        data, state0, j0, t_next, t_regsrc, t_csrc, t_cmeta, W=W,
+        CPW=CPW, BITS=BITS, CODE=CODE, R=R, T=T)
 
     Cp = phi.size
     phi_f = phi.reshape(Cp)
@@ -864,8 +744,8 @@ def tdfa_find_many(tables, docs, chunk_len=2048, prepared=None):
         tables.t_next, tables.t_regsrc, tables.t_csrc,
         tables.t_cmeta,
         jnp.int32(C), jnp.int32(tables.dead_premult),
-        J=J, W=W, CPW=tables.cpw, BITS=tables.bits,
-        CODE=tables.code_bits, R=R, T=T, ROWS=tables.rows)
+        W=W, CPW=tables.cpw, BITS=tables.bits,
+        CODE=tables.code_bits, R=R, T=T)
     # the whole-stream summary cannot serve per-document results;
     # every document folds through the chunk-repair walk (trusted
     # chunks decode from the planes, the rest re-walk natively)
@@ -940,8 +820,8 @@ def tdfa_spec_find(tables, data_np, chunk_len=2048, prepared=None):
         tables.t_next, tables.t_regsrc, tables.t_csrc,
         tables.t_cmeta,
         jnp.int32(full_C), jnp.int32(tables.dead_premult),
-        J=J, W=W, CPW=tables.cpw, BITS=tables.bits,
-        CODE=tables.code_bits, R=R, T=T, ROWS=tables.rows)
+        W=W, CPW=tables.cpw, BITS=tables.bits,
+        CODE=tables.code_bits, R=R, T=T)
     summ = np.asarray(summary).astype(np.int64)
     if tables.is_core or not bool(summ[0]):
         # chunk-wise repair: validate the chain on host per chunk,

@@ -4,16 +4,14 @@ mesh and per-host corpus slicing used by the sharded scans.
 The scan design needs nothing else for multi-host: tables are
 replicated, corpus shards are data-parallel, and the only collective
 is the tiny per-scan summary all_gather (S-vector or per-chunk
-planes), which XLA routes over ICI/DCN automatically once the mesh
-spans hosts (BASELINE.md targets >= 90% scaling efficiency at 2
-hosts; this environment exposes a single chip, so the curve itself is
-measured wherever a pod slice is available — the CPU-mesh tests and
-the driver dryrun validate the sharding program compiles and runs).
+planes), which XLA routes over the interconnect automatically once
+the mesh spans hosts (multi-host scaling is not measured yet; the
+2-process CPU test validates the sharding program).
 
-Usage on each host of a pod slice:
+Usage on each host:
 
     from sregex_tpu.parallel import distributed as dist
-    dist.initialize()                  # env-driven (TPU autodetect)
+    dist.initialize()                  # COORDINATOR_ADDRESS etc.
     mesh = dist.global_mesh()
     lo, hi = dist.host_slice(len(corpus))   # this host's byte range
     # feed corpus[lo:hi] through sharded/spec scans with mesh=mesh
@@ -28,8 +26,8 @@ import jax
 def initialize(coordinator_address=None, num_processes=None,
                process_id=None, **kw):
     """jax.distributed.initialize with environment fallbacks
-    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID); on TPU pods
-    all three autodetect from the metadata server.  Safe to call once
+    (COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID); on GPU hosts
+    give all three (nothing autodetects them).  Safe to call once
     per process before any device computation; a no-op when the
     backend is already initialized."""
     if jax.process_count() > 1:
@@ -57,7 +55,7 @@ def initialize(coordinator_address=None, num_processes=None,
 def global_mesh(axis="data", devices=None):
     """1-D mesh over every device in the (possibly multi-host) job,
     in process-major order so each host's corpus slice lands on its
-    own chips."""
+    own devices."""
     from jax.sharding import Mesh
     devices = devices if devices is not None else jax.devices()
     return Mesh(np.array(devices), (axis,))

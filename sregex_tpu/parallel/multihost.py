@@ -164,18 +164,16 @@ def _launch(tables, local_bytes, mesh, chunk_len, full_len,
     gs0 = jax.make_array_from_process_local_data(sh, s0)
     gj0 = jax.make_array_from_process_local_data(sh, j0)
 
-    # replicate the fused tables as a proper global array
-    fused_attr = "fused_vec" if hasattr(tables, "fused_vec") \
-        else "fused_rows"
-    orig = getattr(tables, fused_attr)
-    setattr(tables, fused_attr, _replicated(mesh, orig))
+    # replicate the table as a proper global array
+    orig = tables.table
+    tables.table = _replicated(mesh, orig)
     try:
         summary, packed = tables._scan(
             gdata, gs0, gj0, jnp.int32(C_kernel),
             jnp.int32(bad_tail), J, W, COUNT=COUNT, mesh=mesh,
             axis=axis)
     finally:
-        setattr(tables, fused_attr, orig)
+        tables.table = orig
 
     rep = jax.jit(lambda x: x,
                   out_shardings=NamedSharding(mesh, P()))

@@ -1,12 +1,13 @@
-"""Multi-chip data-parallel DFA scan.
+"""Multi-device data-parallel DFA scan.
 
 The reference is single-threaded C; the distributed dimension here is
-net-new TPU architecture (SURVEY.md §5, §7): corpus shards are
+net-new architecture (SURVEY.md §5, §7): corpus shards are
 data-parallel across a `jax.sharding.Mesh`, the compiled DFA tables
 are replicated, and cross-shard correctness uses the same associative
-transfer-function composition as the single-chip chunk scan — each
+transfer-function composition as the single-device chunk scan — each
 shard reduces to an S-vector summary (phi, first-match), summaries are
-all_gathered (S*8 bytes per chip — negligible on ICI), and the final
+all_gathered (S*8 bytes per device — negligible next to the
+scan), and the final
 fold runs everywhere redundantly.  The streaming-resume semantics of
 sre_vm_pike_exec (SRE_AGAIN carry) thus become a scan carry whose
 boundary-crossing state is exactly the DFA state id.
@@ -57,7 +58,7 @@ def _sharded_scan(fused_bm, data, valid_len, *, chunk_len, mesh, axis):
             phi, fm, fid = new
             n = phi.shape[0]
         # local summary -> global: gather all shard summaries (tiny)
-        # and compose in shard order on every chip
+        # and compose in shard order on every device
         local_bytes = jnp.sum(valid_len.astype(jnp.int64))
         phi_all = jax.lax.all_gather(phi[0], axis)      # [D, S]
         fm_all = jax.lax.all_gather(fm[0], axis)        # [D, S] int64

@@ -4,14 +4,13 @@ Exercises streaming exec, captures, multi-regex, prefilter, and the
 DFA scanner against the Python oracle."""
 import os, random, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-import sregex_tpu.native_pike as npk
-import sregex_tpu.native as nat
-import sregex_tpu.native_tdfa as ntd
-_here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-if os.path.exists(os.path.join(_here, "csrc", "libsrepike_asan.so")):
-    npk._SO = os.path.join(_here, "csrc", "libsrepike_asan.so")
-    nat._SO = os.path.join(_here, "csrc", "libsrehost_asan.so")
-    ntd._SO = os.path.join(_here, "csrc", "libsretdfa_asan.so")
+from sregex_tpu import native_build
+_asan = os.path.join(native_build.BUILD_DIR, "..", "asan")
+if os.path.exists(os.path.join(_asan, "libsrepike_asan.so")):
+    for src, lib in (("sre_pike.cpp", "libsrepike_asan.so"),
+                     ("sre_host.cpp", "libsrehost_asan.so"),
+                     ("sre_tdfa.cpp", "libsretdfa_asan.so")):
+        native_build.OVERRIDES[src] = os.path.join(_asan, lib)
 
 from sregex_tpu import parse, parse_multi, compile_regex
 from sregex_tpu.pike_vm import PikeCtx

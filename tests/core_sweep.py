@@ -9,6 +9,9 @@ or LazyDfa when past the eager budget).  This cross-checks the WHOLE
 tier-dispatch stack on real-suite patterns rather than hand-picked
 ones.
 
+Without the reference checkout (tblocks.REF_T_DIR) the sweep runs a
+fixed list of conformance-style patterns kept here (FALLBACK_PATTERNS).
+
 Usage: python tests/core_sweep.py [N=150] [seed]
 """
 
@@ -31,23 +34,31 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 
-def pattern_alphabet(pat):
-    """Bytes likely to drive the automaton + some junk."""
-    lits = bytes(sorted({b for b in pat
-                         if bytes([b]).isalnum()})) or b"ab"
-    return lits + b"  xx\n"
+# conformance-style patterns (literals, classes, anchors, word
+# boundaries, lazy and counted repetition, alternation, captures,
+# multi-byte machines past the narrow and wide tiers) for machines
+# without the reference suite
+FALLBACK_PATTERNS = [
+    b"a", b"ab", b"abc", b"a|b", b"a|(ab)", b"a*", b"a+b", b"a?b",
+    b"(a|b)*c", b"[a-z]+", b"[^a]b", rb"\d+", rb"\w+\s+\w+",
+    b"^abc", b"abc$", rb"\bfoo\b", b"a{2,3}", b"a{3}", b"(ab){2,}",
+    b"x{0,3}y", b"(a*)*", b"(a|ab)(c|bcd)(d*)", b"[0-9a-f]{2,8}",
+    b".*abc", b"a.c", b"(?:a|b)aa(?:aa|bb)cc(?:a|b)", rb"\Aab",
+    rb"ab\z", rb"(\w+)@(\w+)", b"a{60}b", b"(?:ab|ba){8,20}c",
+    b"b(?:aa)*b", rb"\d+(\.\d+)?", b"x*y*z*", b"(foo|bar|baz)+",
+    b"[aeiou]{2}", b"a+?b", b"a*?c", b"(a)(b(c))", rb"\S+",
+    b"word (?:[a-zA-Z0-9]+ ){0,10}otherword",
+    b"(x|y|z[QW]){1,5}(longish|loquatious)",
+]
 
 
-def run(limit=150, seed=7, verbose=True, multi_every=5):
-    """Every ``multi_every``-th case additionally fuses the NEXT 2-3
-    suite patterns into one multi-regex program and checks the
-    device scan's (regex_id, end) + count against the oracle."""
-    from tblocks import iter_suite, resolve_section, PerlOracle
-    from sregex_tpu.parser import parse, parse_multi
-    from sregex_tpu.compiler import compile_regex
-    from sregex_tpu.stream import Scanner
-    from sregex_tpu.native import NativeDfa
-
+def suite_patterns():
+    """Unique single-regex patterns of the reference suite, or
+    FALLBACK_PATTERNS when the suite is not on this machine."""
+    from tblocks import REF_T_DIR, iter_suite, resolve_section, \
+        PerlOracle
+    if not os.path.isdir(REF_T_DIR):
+        return list(FALLBACK_PATTERNS)
     oracle = PerlOracle()
     seen = set()
     pats = []
@@ -62,6 +73,26 @@ def run(limit=150, seed=7, verbose=True, multi_every=5):
             seen.add(re_val)
             pats.append(re_val)
     oracle.close()
+    return pats
+
+
+def pattern_alphabet(pat):
+    """Bytes likely to drive the automaton + some junk."""
+    lits = bytes(sorted({b for b in pat
+                         if bytes([b]).isalnum()})) or b"ab"
+    return lits + b"  xx\n"
+
+
+def run(limit=150, seed=7, verbose=True, multi_every=5):
+    """Every ``multi_every``-th case additionally fuses the NEXT 2-3
+    suite patterns into one multi-regex program and checks the
+    device scan's (regex_id, end) + count against the oracle."""
+    from sregex_tpu.parser import parse, parse_multi
+    from sregex_tpu.compiler import compile_regex
+    from sregex_tpu.stream import Scanner
+    from sregex_tpu.native import NativeDfa
+
+    pats = suite_patterns()
     rng = random.Random(seed)
     rng.shuffle(pats)
 
@@ -72,7 +103,7 @@ def run(limit=150, seed=7, verbose=True, multi_every=5):
             break
         if ran and ran % 40 == 0:
             # free accumulated XLA:CPU executables: hundreds of
-            # interpret-mode compiles in one process exhaust host RAM
+            # compiles in one process exhaust host RAM
             # (the full 708-pattern run died in LLVM at ~350 without
             # this — the same class conftest handles per test module)
             import gc

@@ -42,7 +42,7 @@ os.environ.setdefault("XLA_FLAGS",
                       "--xla_force_host_platform_device_count=8")
 os.environ.setdefault("SREGEX_TIER_AB", "0")
 import jax  # noqa: E402
-if os.environ.get("SREGEX_TEST_TPU") != "1":
+if os.environ.get("SREGEX_TEST_GPU") != "1":
     jax.config.update("jax_platforms", "cpu")
 
 MAX_SCANS = 6          # 2 strikes per rung, 32 -> 128 -> 512 (+slack)

@@ -153,10 +153,10 @@ def test_device_prep_3bit_bit_identical(monkeypatch):
 
 def test_prepare_auto_device_input_below_min_routes_to_device():
     """Round-5 regression: a jax.Array input (PreparedCorpus raw
-    sharing, Scanner.precompile's HBM zeros stand-in) must take the
+    sharing, Scanner.precompile's device zeros stand-in) must take the
     DEVICE prep path even below DEVICE_PREP_MIN — the host path
-    cannot read off-CPU buffers (np.frombuffer raised BufferError on
-    real TPU; CPU tests pin the routing + bit-identity instead)."""
+    cannot read off-CPU buffers (np.frombuffer raises BufferError on
+    an accelerator; CPU tests pin the routing + bit-identity instead)."""
     import jax.numpy as jnp
     import numpy as np
     from sregex_tpu import parse, compile_regex

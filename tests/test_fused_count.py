@@ -1,6 +1,6 @@
 """Fused two-phase count (pallas_core.core_count_fused): core kernel
 + on-device escape compaction + full-machine redo + merged validation
-in one jit, vs the native oracle (interpret mode on the CPU mesh)."""
+in one jit, vs the native oracle (the plain walk on the CPU mesh)."""
 
 import random
 
@@ -16,8 +16,8 @@ from sregex_tpu.ops.pallas_core import (CoreTables, core_count_fused,
 
 def _multi_machine(nwords=14, wordlen=4, seed=2):
     """Keyword-set machine whose static tier is wide on the CPU mesh
-    and whose core stays wide too (the bench-multi shape, scaled to
-    the interpret-mode budgets)."""
+    and whose core stays wide too (the bench-multi shape, scaled
+    down for the CPU tests)."""
     rng = random.Random(seed)
     words = list({("".join(rng.choice("abcdefghijklmn")
                            for _ in range(wordlen))).encode()
@@ -545,10 +545,9 @@ def test_fused_reverse_index_finditer_exact():
 
 
 def test_precompile_warms_fused_traces():
-    """Scanner.precompile(nbytes, sample) pushes a zero-filled HBM
+    """Scanner.precompile(nbytes, sample) pushes a zero-filled device
     stand-in through the exact prep + fused dispatch flow — the
-    subsequent REAL count reuses every trace (measured: 0.38 s vs
-    ~20 s cold on the CPU mesh) and stays exact.  bench.py overlaps
+    subsequent REAL count reuses every trace and stays exact.  bench.py overlaps
     this with the native oracle count (VERDICT r4 #8)."""
     import random as _r
     import time as _t

@@ -1,5 +1,5 @@
 """G=8 layout coverage on the CPU mesh: the production default since
-round 4 (conftest pins G=4 for interpret speed, so this module runs
+round 4 (conftest pins G=4 to keep the CPU tests small, so this module runs
 ONE exactness pass at G=8 in a subprocess with the production
 default)."""
 

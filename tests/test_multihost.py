@@ -2,9 +2,8 @@
 connected processes (4 virtual CPU devices each, global mesh of 8),
 each holding only its host_slices() half of the corpus, and checks
 parallel.multihost.count_multihost against the full-corpus native
-count — the closest this environment gets to a real 2-host pod run
-(BASELINE.md).  SREGEX_MULTIHOST=0 skips (≈1-2 min of interpret-mode
-kernel time)."""
+count — a real 2-process jax.distributed run on the CPU
+(BASELINE.md).  SREGEX_MULTIHOST=0 skips it."""
 
 import os
 import socket

@@ -1,5 +1,5 @@
 """Piecewise-affine tier (ops/pallas_affine.py) vs the native oracle
-(interpret mode on the CPU mesh)."""
+(the plain walk on the CPU mesh)."""
 
 import random
 

@@ -1,6 +1,6 @@
-"""Big-table speculative kernel (ops/pallas_big.py) vs the host DFA
-engine, in interpret mode on the CPU mesh — the same code compiles to
-a Mosaic kernel on TPU (smoke-tested there separately).
+"""Big-table speculative tier (ops/pallas_big.py) vs the host DFA
+engine, on the CPU mesh (the plain walk; tests/test_scan_kernel.py
+checks the GPU kernel body against it).
 
 Patterns chosen to cross every tier boundary: S*ncls > 1024 (past the
 wide kernel), ncls > 16 (8-bit class packing), and the

@@ -1,5 +1,5 @@
 """Adaptive hot-core tier (ops/pallas_core.py) vs the full native
-machine, in interpret mode on the CPU mesh.
+machine, on the CPU mesh (the plain walk).
 
 The exactness claim under test: core results NEVER depend on the
 sample being representative — adversarial data that constantly
@@ -291,8 +291,8 @@ def test_core_engages_over_static_wide_tier(monkeypatch):
     rid, end = sc.scan(data)
     assert end == exp_first
     assert rid == sc.dfa.id_at(exp_state, data[exp_first])
-    # a SHORT wide chain must stay on its static tier (measured
-    # faster than the core on hardware)
+    # a SHORT wide chain must stay on its static tier (the Scanner's
+    # decision band)
     sc2 = compile_pattern(b"q[ab]{40,90}z", use_device=True)
     assert isinstance(sc2._spec, SpecTablesWide) and sc2._spec.rows <= 4
     sc2.DEVICE_THRESHOLD = 1 << 12

@@ -1,6 +1,6 @@
 """Pair-step kernel tier (ops/pallas_pair.py) vs the byte kernels and
 the native engine — same results for scan/count under arbitrary
-corpora, entry states, and ragged tails (CPU interpret mode)."""
+corpora, entry states, and ragged tails (the plain walk on the CPU)."""
 
 import numpy as np
 import pytest

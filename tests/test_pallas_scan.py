@@ -1,5 +1,6 @@
-"""Speculative Pallas scan vs host DFA engine (interpret mode on the
-CPU mesh; the same code compiles to a Mosaic kernel on TPU)."""
+"""Speculative chunk scan vs host DFA engine (the plain walk on the
+CPU mesh; tests/test_scan_kernel.py checks the GPU kernel body
+against it in interpret mode)."""
 
 import random
 
@@ -133,8 +134,7 @@ def test_wide_tables_match_native():
 
 
 def test_wide_tier_r17_matches_native():
-    """Extended wide tier (1024 < S*ncls <= 4096): statically unrolled
-    17-row select chain, interpret mode."""
+    """Extended wide tier (1024 < S*ncls <= 4096 table entries)."""
     from sregex_tpu.ops.pallas_scan import SpecTablesWide
     ast, _ = parse("word (?:[a-zA-Z0-9]+ ){0,10}otherword")
     dfa = build_dfa(compile_regex(ast), max_states=65536)
@@ -154,33 +154,17 @@ def test_wide_tier_r17_matches_native():
         assert (got_first, got_state) == (exp_first, exp_state)
 
 
-def test_vmem_chunk_clamp_is_shape_derived(monkeypatch):
-    """Regression for the round-3 hardware OOM (BENCH_r03.json): the
-    90-keyword multi-regex machine (rows=98, 8-bit packing) compiled a
-    wide kernel whose scoped-VMEM footprint crossed the 16 MiB limit
-    at the old constant K=1920 clamp.  max_chunk must now be derived
-    from shapes so the modeled footprint stays under the requested
-    limit for EVERY (rows, packing) combination."""
-    from sregex_tpu.ops.pallas_scan import (
-        max_chunk_bytes, vmem_limit_bytes, GROUPS, _VMEM_SLACK)
-
-    def footprint(k, rows, cpw, w, bpu=1):
-        jw = (w + k) // (bpu * cpw)
-        return 2 * jw * GROUPS * 4096 + rows * 4096 + _VMEM_SLACK
-
-    for rows, cpw, w, bpu in [(1, 4, 16, 1), (98, 4, 16, 1),
-                              (128, 4, 16, 1), (1024, 4, 32, 1),
-                              (452, 8, 32, 1), (8, 4, 32, 2)]:
-        k = max_chunk_bytes(rows, cpw, w, bpu=bpu)
-        assert footprint(k, rows, cpw, w, bpu) <= vmem_limit_bytes(), \
-            (rows, cpw, w, bpu, k)
-        quantum = cpw * 2 * bpu
-        assert k % quantum == 0 and k >= quantum
-
-    # the r3 crash shape at the compiler's 16 MiB default: the derived
-    # clamp must land BELOW the constant 1920 that OOM'd
-    monkeypatch.setenv("SREGEX_VMEM_LIMIT_MB", "16")
-    assert max_chunk_bytes(98, 4, 16) < 1920
+def test_chunk_clamp_keeps_counts_in_16_bits():
+    """The chunk clamp is the repair planes' 16-bit per-chunk count
+    bound: the largest chunk on the packing quantum below 2**16, for
+    every packing and unit width."""
+    from sregex_tpu.ops.pallas_scan import (max_chunk_bytes,
+                                            WORDS_PER_ITER)
+    for cpw, bpu in [(4, 1), (8, 1), (10, 1), (4, 2), (8, 2)]:
+        k = max_chunk_bytes(cpw, bpu=bpu)
+        quantum = cpw * WORDS_PER_ITER * bpu
+        assert k % quantum == 0 and k < 1 << 16, (cpw, bpu, k)
+        assert k + quantum >= 1 << 16, (cpw, bpu, k)
 
 
 def test_wide_tables_carry_derived_clamp():
@@ -197,5 +181,6 @@ def test_wide_tables_carry_derived_clamp():
     dfa = build_dfa(compile_regex(ast))
     t = SpecTablesWide(dfa)
     assert t.bits == 8
-    assert t.max_chunk == max_chunk_bytes(t.rows, t.cpw, t.warmup)
+    assert t.max_chunk == max_chunk_bytes(t.cpw)
     assert effective_chunk(t, 1 << 15) <= t.max_chunk
+    assert effective_chunk(t, 1 << 20) == t.max_chunk

@@ -1,5 +1,5 @@
 """Pipelined streaming scan (ops/pipeline.py) vs the single-buffer
-drivers and the native engine (interpret mode on the CPU mesh).
+drivers and the native engine (the plain walk on the CPU mesh).
 
 The pipeline's exactness argument — a non-first segment's chunk 0
 speculates over the real previous-segment tail and is validated

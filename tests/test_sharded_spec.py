@@ -1,5 +1,5 @@
-"""Speculative Pallas kernel under shard_map on the virtual 8-device
-CPU mesh (the fast multi-chip path, VERDICT #4): per-chunk planes come
+"""Speculative walk under shard_map on the virtual 8-device
+CPU mesh (the fast multi-device path): per-chunk planes come
 back in global chunk order, so the swarm==entries validation chain
 stitches shards exactly — including assertions (\\b, ^) straddling
 shard boundaries, which ride the warmup context like any chunk

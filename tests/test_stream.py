@@ -92,7 +92,7 @@ def test_multi_pattern_scanner():
 
 def test_scanner_device_paths():
     # exercise the device-backed match/count through the public API
-    # (pallas kernel in interpreter mode on CPU); force a tiny
+    # (the plain walk on the CPU); force a tiny
     # threshold so small corpora take the device path
     sc = Scanner(compile_pattern("ab").program, use_device=True)
     if sc._spec is None:
@@ -143,7 +143,7 @@ def test_find_fast_equals_full_pike(pattern, data):
 
 
 def test_find_device_reverse_path():
-    # both forward and reverse scans on the (interpreted) device path
+    # both forward and reverse scans on the device path
     sc = Scanner(compile_pattern(rb"u@h").program, use_device=True,
                  ast=None)
     # ast=None disables the fast path; build a proper one instead

@@ -167,9 +167,9 @@ def test_finditer_stream_monster_fallback():
 
 
 def test_stream_events_device_map():
-    """Force the device fire map (interpret mode on the CPU mesh):
-    a low DEVICE_THRESHOLD routes whole windows through the Pallas
-    spec kernel."""
+    """Force the device fire map (the plain walk on the CPU mesh):
+    a low DEVICE_THRESHOLD routes whole windows through the
+    speculative scan."""
     pats = [rb"dog[0-9]{1,3}", rb"ERROR[^\n]*"]
     for pat in pats:
         ast = None

@@ -1,9 +1,9 @@
 """Device tagged-DFA kernel (ops/tdfa_scan.py) vs the Pike oracle.
 
-Runs in Pallas interpret mode on the CPU mesh; the same kernel compiles
-to Mosaic on TPU.  Exactness is the contract: every certified result
-must byte-equal Scanner's Pike-resolved answer (VERDICT.md next-round
-item 1 — "capture vectors from device registers byte-equal to Pike").
+Runs the plain-JAX tagged walk on the CPU mesh (the same code the GPU
+runs).  Exactness is the contract: every certified result must
+byte-equal Scanner's Pike-resolved answer ("capture vectors from
+device registers byte-equal to Pike").
 """
 
 import numpy as np
@@ -281,11 +281,12 @@ EIGHT_BIT_PAT = rb"(money|parted|fool|kilo|victor|zebra)x([0-9]+)"
 
 
 def test_tdfa_device_8bit_classes(monkeypatch):
-    """ncls > 16 machines ride 8-bit packed data words (cpw=4,
-    max_chunk 1920 — the untagged tiers' VMEM discipline): one-pass
-    device find byte-equal to exact-mode Pike."""
+    """ncls > 16 machines ride 8-bit packed data words (cpw=4, the
+    untagged tiers' chunk clamp): one-pass device find byte-equal to
+    exact-mode Pike."""
     import random
-    monkeypatch.setenv("SREGEX_TDFA_MAX", "4096")
+    from sregex_tpu.ops import tdfa_scan
+    monkeypatch.setattr(tdfa_scan, "MAX_ENTRIES", 4096)
     sc = compile_pattern(EIGHT_BIT_PAT)
     t = TdfaSpecTables(sc.program)
     assert t.bits == 8 and t.cpw == 4 and t.ncls > 16, \
@@ -372,8 +373,9 @@ def test_tdfa_core_8bit_classes(monkeypatch):
     core on a >16-class machine stays byte-equal (escapes re-walk in
     the chunk-repair fold)."""
     import random
+    from sregex_tpu.ops import tdfa_scan
     from sregex_tpu.ops.tdfa_scan import TdfaCoreTables
-    monkeypatch.setenv("SREGEX_TDFA_MAX", "4096")
+    monkeypatch.setattr(tdfa_scan, "MAX_ENTRIES", 4096)
     sc = compile_pattern(EIGHT_BIT_PAT)
     rng = random.Random(32)
     alpha = b"abcdefghijklmnopqrstuvwxyz0123456789 "

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Render a compiled program's NFA as a graphviz dot graph.
 
-TPU-native analog of the reference's util/draw_vm_program.pl (bytecode
+Analog of the reference's util/draw_vm_program.pl (bytecode
 dump -> graphviz NFA diagram).
 
 Usage: python util/draw_program.py 'regex' [> out.dot]
